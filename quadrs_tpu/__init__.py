@@ -1,8 +1,8 @@
-"""quadrs_tpu — a TPU-native IQ signal-processing framework in JAX.
+"""quadrs_tpu — an IQ signal-processing framework in JAX for accelerators.
 
 A ground-up rebuild of the capabilities of the Rust SDR tool ``quadrs``
-(reference: FauxFaux/quadrs) designed for TPU hardware: raw IQ captures
-(cf32 / cs8 / cu8 / cs16) are decoded on-chip, pushed through a lazily
+(reference: FauxFaux/quadrs) that runs on a GPU: raw IQ captures
+(cf32 / cs8 / cu8 / cs16) are decoded on device, pushed through a lazily
 composed stream graph of DSP stages (NCO frequency shift, Blackman
 windowed-sinc FIR low-pass with decimation, strided short-time FFTs) that
 jit-compiles into batched XLA programs, and rendered as terminal
@@ -18,8 +18,7 @@ The reference models DSP as a lazy, pull-based ``Samples`` trait
 offsets, the *host* resolves all offset-dependent exact-integer planning
 (file spans, valid counts, NCO phase fractions) with Python/numpy integer
 arithmetic, and the *device* runs one jit-compiled program over the whole
-batch — decode, mix, FIR, FFT all fused by XLA, matmuls/convolutions on
-the MXU.
+batch — decode, mix, FIR, FFT all fused by XLA.
 """
 
 from quadrs_tpu.formats import FileFormat, FileDetails

@@ -101,7 +101,7 @@ class StreamCmd(Command):
     """``stream``: drive the fused shift -> lowpass -> STFT chain over a
     capture file at full rate (the :class:`~quadrs_tpu.stream_runner.
     StreamRunner` serving path; no reference counterpart — the
-    TPU-native framework's flagship streaming product on the shell)."""
+    framework's flagship streaming product on the shell)."""
 
     filename: str | None
     shift: int = 0
@@ -377,7 +377,7 @@ class ChannelizeCmd(Command):
     format: str | None = None
     stdin: bool = False  # buffer the capture from a pipe
     # -mesh Tx1 time-shards the capture's sample axis over the chips,
-    # each exchanging the prototype-length FIR halo over ICI
+    # each exchanging the prototype-length FIR halo over the interconnect
     mesh: tuple[int, int] | None = None
 
 
@@ -1489,8 +1489,8 @@ _PARSERS = {
     "gen": _parse_gen,
     "ui": _parse_ui,
     "eui": _parse_eui,
-    # TPU-native serving products (no reference counterpart): the
-    # streaming runners, the fused waterfall bank with in-kernel search,
+    # Serving products (no reference counterpart): the
+    # streaming runners, the waterfall bank with on-device search,
     # and the composed demodulators, driven from the shell
     "stream": _parse_stream,
     "waterfall": _parse_waterfall,

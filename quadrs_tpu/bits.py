@@ -10,7 +10,7 @@ wired to a CLI command; the README's OOK workflow does this step in
 shell).
 
 The algorithm is inherently sequential with data-dependent control flow
-— a poor fit for the MXU and a fine fit for the host — so it runs in
+— a poor fit for the device and a fine fit for the host — so it runs in
 numpy-accelerated Python over run-length encodings rather than as a
 device kernel.
 """

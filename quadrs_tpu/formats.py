@@ -12,10 +12,10 @@ cs16 offsets, which are a stated bit-exactness acceptance criterion:
 
 Every decode is a pure sequence of IEEE-754 f32 ops in a fixed order, so
 the numpy (host) and jnp (device) paths produce identical bits on the
-CPU backend (the conformance rig).  One hardware nuance: TPUs lower f32
-division through a reciprocal refinement, so the cs8/cu8 divisions can
-land 1 ulp off IEEE on-chip — far inside the float32 tolerance of every
-downstream stage.
+CPU backend (the conformance rig).  One hardware nuance: an accelerator
+may lower f32 division through a reciprocal refinement, so the cs8/cu8
+divisions can land 1 ulp off IEEE on device — far inside the float32
+tolerance of every downstream stage.
 
 Decode is designed to run **on chip**: the host stages the raw capture
 bytes as zero-copy numpy views in their native narrow dtype (int8 /
@@ -138,7 +138,7 @@ def decode_to_complex64(raw, fmt: FileFormat, xp=jnp):
     ``raw`` has shape ``(..., 2*n)`` of the format's native dtype
     (interleaved re, im).  Returns ``(..., n)`` complex64.  With ``xp=jnp``
     this traces into the surrounding jit program, i.e. the unpack runs on
-    the TPU and XLA fuses it into the consumer.
+    the device and XLA fuses it into the consumer.
     """
     comps = _decode_components(raw, fmt, xp)
     return pack_complex(comps[..., 0::2], comps[..., 1::2], xp)
@@ -147,7 +147,7 @@ def decode_to_complex64(raw, fmt: FileFormat, xp=jnp):
 def decode_to_planes(raw, fmt: FileFormat, xp=jnp):
     """Like :func:`decode_to_complex64` but returns ``(re, im)`` f32 planes.
 
-    Preferred on the hot path: TPU compute (FIR on the MXU) runs on real
+    Preferred on the hot path: the FIR and DFT matmuls run on real
     planes; keeping them separate avoids complex<->planar shuffles.
     """
     comps = _decode_components(raw, fmt, xp)
@@ -179,10 +179,10 @@ def decode_plane(raw, fmt: FileFormat, xp=jnp):
     """Decode one already-deinterleaved component plane to f32.
 
     Same bit-exact formulas as :func:`decode_to_complex64`, applied to a
-    contiguous plane.  This is the on-chip decode path: TPU HBM hates
-    stride-2 access (measured ~30x slowdown), so captures are staged as
-    ``(2, n)`` planes — deinterleaved once on the host (or by the native
-    loader during the disk read) — and all device access is contiguous.
+    contiguous plane.  This is the on-device decode path: captures are
+    staged as ``(2, n)`` planes — deinterleaved once on the host (or by
+    the native loader during the disk read) — so all device access is
+    contiguous instead of stride-2.
     """
     return _decode_components(raw, fmt, xp)
 
@@ -217,7 +217,7 @@ def encode_samples(samples: np.ndarray, fmt: FileFormat) -> bytes:
     reference decode's DC offsets, so values outside those narrow
     representable bands SATURATE; encode warns when a significant
     fraction of samples clip (a pipeline that removed the offset —
-    any shift/filter chain — cannot be stored in cu8/cs16 losslessly).  TPU-native addition:
+    any shift/filter chain — cannot be stored in cu8/cs16 losslessly).  An addition:
     the reference writer emits cf32 only (``src/lib.rs:197-209``);
     ``write -format`` uses this to quantize converted captures (cs8's
     representable range is the sane [-128/127, 1]; cu8/cs16 inherit the

@@ -1,6 +1,6 @@
 """Channelizer model: split a capture into K channel streams at once.
 
-TPU-native addition (no reference counterpart — quadrs runs one
+Addition (no reference counterpart — quadrs runs one
 ``shift`` -> ``lowpass`` chain per channel, README.md:89-95).  The
 :class:`Channelize` node plugs into the same lazy stream graph as the
 reference-parity stages: host planning keeps the exact span/valid
@@ -113,7 +113,7 @@ def run_channelize(
     ``mesh``: an optional Tx1
     :func:`quadrs_tpu.parallel.sharding.make_mesh` — the capture's
     sample axis time-shards across the chips, each exchanging the
-    ``size``-sample FIR halo with its right neighbor over ICI
+    ``size``-sample FIR halo with its right neighbor over the interconnect
     (:func:`~quadrs_tpu.parallel.sharding.make_sharded_channelize_step`).
     Requires the bank to sit directly on a raw capture (the chained
     case shards via the stream runner); the unaligned capture tail runs

@@ -4,7 +4,7 @@ This is the production counterpart of the chained CLI pipeline
 (``from -> shift -> lowpass -> sparkfft``): one jit-compiled step that
 takes a raw capture chunk in its native narrow dtype and produces the
 spectrogram magnitudes, with every stage fused by XLA — the decode and
-mix are elementwise VPU work folded into the FIR/DFT matmuls on the MXU.
+mix are elementwise work that XLA fuses into the FIR and DFT consumers.
 
 Two execution modes:
 
@@ -82,9 +82,7 @@ class PipelineModel:
         exact rotation into ``cis(theta0) · cis(thetaQ[q]) · cis(thetaR[r])``.
         The q/r factors are host-exact f64-rounded tables (O(n/K + K)
         values), the traced base costs two transcendentals total, and
-        each sample pays only the angle-addition multiplies on the VPU —
-        the same table trick as the Pallas frontend's v2.3 kernel, which
-        measured it +39% on the fused chain."""
+        each sample pays only the angle-addition multiplies."""
         k = self._MIX_TILE
         n = x.shape[-1]
         rows = -(-n // k)
@@ -150,10 +148,9 @@ class PipelineModel:
     def _decode(self, raw: jnp.ndarray) -> jnp.ndarray:
         """(…, 2, n) native-dtype planes -> (…, n) complex64, on chip.
 
-        Planar layout is load-bearing: stride-2 deinterleave in HBM costs
-        ~30x the whole rest of the chain (measured on v5e), so the host /
-        native loader deinterleaves once and the device reads contiguous
-        planes.
+        Planar layout: the host / native loader deinterleaves once, so
+        the device reads two contiguous planes instead of a stride-2
+        gather.
         """
         re = decode_plane(raw[..., 0, :], self.cfg.fmt, xp=jnp)
         im = decode_plane(raw[..., 1, :], self.cfg.fmt, xp=jnp)
@@ -204,144 +201,6 @@ class PipelineModel:
             y = fir_decimate(x[None, :], self.taps, cfg.decimate, n_dec, impl=cfg.fir_impl)[0]
         return stft_norms(y[: n_windows * cfg.fft_width].reshape(n_windows, cfg.fft_width))
 
-    # -- pallas frontend variant -------------------------------------------
-    @cached_property
-    def frontend_spec(self):
-        from quadrs_tpu.ops.frontend_pallas import FrontendSpec
-
-        return FrontendSpec(
-            fmt=self.cfg.fmt,
-            sample_rate=self.cfg.sample_rate,
-            shift_freq=self.cfg.shift_freq,
-            decimate=self.cfg.decimate,
-            taps_bytes=self.taps.tobytes(),
-        )
-
-    def pallas_supported(self) -> bool:
-        """Capability: the fused frontend *can* run this config.
-
-        Transposed kernel envelope: any decimate to 64 (the polyphase
-        axis lives on sublanes) and up to 128 subfilters — the round-3
-        group-accumulated diagonal reduction keeps peak VMEM O(32)
-        subfilters regardless of filter length (tiles scale down past 32
-        subfilters, see ``frontend_pallas._tout_t``), so power=2000 at
-        d=32 (m_sub=125) and non-dividing decimates all compile and run
-        (hardware-verified at d=3,6,8,12,32 / m_sub up to 125)."""
-        from quadrs_tpu.ops import frontend_pallas as fp
-
-        m_sub = -(-self.cfg.taps // self.cfg.decimate)
-        return fp.supported_t(self.cfg.decimate) and m_sub <= 128
-
-    def pallas_preferred(self) -> bool:
-        """Auto-routing choice: run the fused frontend only where it
-        measured faster than the XLA chain on v5e (round 3):
-
-        * m_sub <= 32 with 128-dividing decimate — the round-2 proven
-          wins (headline cs8 4120 vs ~2400 Msps);
-        * m_sub 33..64 at d=32 (cs8 3577 vs 1937 XLA; cu8 3535 vs
-          1959; cf32 2317 vs 1940), and at d=16 for the integer formats
-          (cs8 2813 vs 2414; cu8 2672 vs 2228; cs16 parity) — but NOT
-          cf32 at d=16 (1972 vs 2363), d=8 (m_sub=50: 1689 vs 2356) or
-          d=64 (m_sub=64: 4607 vs 4714);
-        * tiny non-dividing decimates (d <= 8), where the XLA matmul
-          impls crater (d=3: 45 Msps XLA vs 805 fused; d=6 cf32:
-          758 vs 944);
-        * everything longer routes XLA: the m_sub>64 spectral os_poly
-          chain beats direct-form fused (cf32 power=2000: 3829 vs
-          2180)."""
-        if not self.pallas_supported():
-            return False
-        from quadrs_tpu.ops import frontend_pallas as fp
-
-        d = self.cfg.decimate
-        m_sub = -(-self.cfg.taps // d)
-        if fp.supported(d):
-            if m_sub <= 32:
-                return True
-            band = d == 32 or (
-                d == 16 and self.cfg.fmt is not FileFormat.COMPLEX_FLOAT32
-            )
-            return m_sub <= 64 and band
-        # non-dividing: only the measured-win band; past 64 subfilters
-        # the spectral os_poly chain wins everywhere it was measured
-        return d <= 8 and m_sub <= 64
-
-    def stream_bases(self, global_start: int, n_chunk: int) -> np.ndarray:
-        """Host-exact per-tile NCO bases for :meth:`step_stream_pallas` of
-        a chunk whose first sample sits at absolute ``global_start``."""
-        from quadrs_tpu.ops.frontend_pallas import tile_bases_t
-
-        cfg = self.cfg
-        # whole STFT windows only: asking the kernel for the few spare
-        # decimated outputs past the last window can cost a whole extra
-        # grid tile that step_stream_pallas would discard anyway
-        n_dec = (n_chunk - cfg.taps) // cfg.decimate
-        n_out = n_dec // cfg.fft_width * cfg.fft_width
-        # group-delay prefix is ceil(taps/2), matching fir_decimate
-        return tile_bases_t(
-            self.frontend_spec, global_start + (cfg.taps - cfg.taps // 2), n_out
-        )
-
-    def step_stream_pallas(
-        self,
-        raw: jnp.ndarray,
-        bases: jnp.ndarray,
-        n_valid: int | None = None,
-        fuse_stft: bool | None = None,
-    ) -> jnp.ndarray:
-        """Streaming mode through the fused Pallas frontend
-        (decode+mix+FIR in one VMEM pass; ~2x the XLA chain for integer
-        formats on v5e).  ``raw``: (2, n_chunk) native planes; ``bases``:
-        per-tile angles from :meth:`stream_bases`; ``n_valid``: real
-        sample count when the caller zero-padded raw bytes (masked in
-        the decoded domain, like step_stream's ``valid``).  Same output
-        as :meth:`step_stream`.
-
-        ``fuse_stft``: fold the STFT epilogue into the kernel (widths
-        dividing 128; the decimated stream never reaches HBM).
-        Measured a WASH on v5e (same-session: cs8 4102 vs 4098, cs16
-        5055 vs 5046, cf32 3215 vs 3230 Msps) — the separate XLA STFT
-        dispatch is already fully overlapped — so the default (None)
-        keeps the simpler unfused path; the fused variant remains for
-        HBM-pressure situations (it removes the decimated stream's
-        round-trip).
-        """
-        from quadrs_tpu.ops.frontend_pallas import fused_frontend_t
-
-        cfg = self.cfg
-        n_in = raw.shape[-1]
-        n_dec = (n_in - cfg.taps) // cfg.decimate
-        n_windows = n_dec // cfg.fft_width
-        n_out = n_windows * cfg.fft_width  # whole windows (see stream_bases)
-        prefix = cfg.taps - cfg.taps // 2  # ceil(taps/2), like fir_decimate
-        nv = None if n_valid is None else max(0, int(n_valid) - prefix)
-        if fuse_stft is None:
-            fuse_stft = False
-        interp = jax.default_backend() != "tpu"
-        if fuse_stft:
-            return fused_frontend_t(
-                raw[:, prefix:],
-                bases,
-                self.frontend_spec,
-                n_out,
-                n_valid=nv,
-                stft_width=cfg.fft_width,
-                interpret=interp,
-            )
-        y = fused_frontend_t(
-            raw[:, prefix:],
-            bases,
-            self.frontend_spec,
-            n_out,
-            n_valid=nv,
-            # CPU rigs run the kernel interpreted (no Mosaic backend there)
-            interpret=interp,
-        )
-        yc = pack_complex(y[0], y[1], xp=jnp)
-        return stft_norms(
-            yc[: n_windows * cfg.fft_width].reshape(n_windows, cfg.fft_width)
-        )
-
     # -- per-window peak search (the StreamRunner counterpart of
     # WaterfallModel.search: scan the decimated channel for its peak) ----
     @staticmethod
@@ -363,11 +222,6 @@ class PipelineModel:
         rows never round-trip through the host)."""
         return self._peak_reduce(self.step_stream(raw, theta0, valid))
 
-    def step_stream_pallas_search(
-        self, raw: jnp.ndarray, bases: jnp.ndarray, n_valid: int | None = None
-    ) -> tuple[jnp.ndarray, jnp.ndarray]:
-        return self._peak_reduce(self.step_stream_pallas(raw, bases, n_valid))
-
     @cached_property
     def jit_step_windows(self):
         return jax.jit(self.step_windows)
@@ -377,18 +231,8 @@ class PipelineModel:
         return jax.jit(self.step_stream)
 
     @cached_property
-    def jit_step_stream_pallas(self):
-        return jax.jit(
-            self.step_stream_pallas, static_argnames=("n_valid", "fuse_stft")
-        )
-
-    @cached_property
     def jit_step_stream_search(self):
         return jax.jit(self.step_stream_search)
-
-    @cached_property
-    def jit_step_stream_pallas_search(self):
-        return jax.jit(self.step_stream_pallas_search, static_argnames=("n_valid",))
 
     # -- convenience ------------------------------------------------------
     def chunk_bytes(self, n_samples: int) -> int:

@@ -1,10 +1,10 @@
 """Batched multi-stream waterfall: many captures, one fused program.
 
 BASELINE config 5: "64 parallel cs8 IQ streams, fused decode + 1024-pt
-strided STFT spectrogram search".  All streams decode on chip and go
-through one batched windowing + DFT — a single ``(S*windows, W) @ (W,
-W)`` MXU matmul — plus an optional peak-search reduction, so the whole
-waterfall bank is one XLA program per chunk.
+strided STFT spectrogram search".  All streams decode on device and go
+through one batched windowing + DFT over ``(S*windows, W)`` frames, plus
+an optional peak-search or band-survey reduction that XLA fuses into the
+norms, so the whole waterfall bank is one XLA program per chunk.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ class WaterfallConfig:
     stride: int = 1024
     fmt: FileFormat = FileFormat.COMPLEX_INT8
     windowing: str = "rectangular"  # or "blackman-harris"
-    frontend: str = "auto"  # auto | xla | pallas
 
 
 class WaterfallModel:
@@ -40,48 +39,11 @@ class WaterfallModel:
             else None
         )
 
-    def pallas_supported(self) -> bool:
-        """The fused kernel handles 128*b-bin windows at any stride
-        (stride == width is a free reshape; other strides build the
-        window matrix from native-dtype row slices in XLA)."""
-        from quadrs_tpu.ops import waterfall_pallas as wp
-
-        return wp.supported(self.cfg.fft_width)
-
-    def _use_pallas(self) -> bool:
-        if self.cfg.frontend == "pallas":
-            return True
-        if self.cfg.frontend == "xla":
-            return False
-        if self.cfg.frontend != "auto":
-            raise ValueError(
-                f"unknown frontend {self.cfg.frontend!r}: use auto|xla|pallas"
-            )
-        return jax.default_backend() == "tpu" and self.pallas_supported()
-
-    def _fused_args(self, n: int):
-        """Shared kernel-dispatch arguments for step() and search():
-        (spec, n_windows, stride, interpret) — one place so the window
-        count formula and interpret policy can't drift apart."""
-        from quadrs_tpu.ops.waterfall_pallas import WaterfallSpec
-
-        cfg = self.cfg
-        spec = WaterfallSpec(fmt=cfg.fmt, width=cfg.fft_width, windowing=cfg.windowing)
-        n_windows = (n - cfg.fft_width) // cfg.stride + 1
-        return spec, n_windows, cfg.stride, jax.default_backend() != "tpu"
-
     def step(self, raw: jnp.ndarray) -> jnp.ndarray:
         """(S, 2, n) native planes -> (S, windows, fft_width) f32 norms."""
         cfg = self.cfg
         n = raw.shape[-1]
         n_windows = (n - cfg.fft_width) // cfg.stride + 1
-        if self._use_pallas():
-            from quadrs_tpu.ops.waterfall_pallas import fused_waterfall
-
-            spec, n_windows, stride, interpret = self._fused_args(n)
-            return fused_waterfall(
-                raw, spec, n_windows, stride=stride, interpret=interpret
-            )
         re = decode_plane(raw[:, 0, :], cfg.fmt, xp=jnp)
         im = decode_plane(raw[:, 1, :], cfg.fmt, xp=jnp)
         x = pack_complex(re, im, xp=jnp)  # (S, n)
@@ -94,9 +56,7 @@ class WaterfallModel:
 
     def search(self, raw: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
         """Spectrogram search: per (stream, window) the peak bin and its
-        magnitude — the device-side reduction for scanning many bands.
-        Through the fused kernel the reduction happens in VMEM and the
-        spectrogram itself never touches HBM."""
+        magnitude — the device-side reduction for scanning many bands."""
         return self.jit_search()(raw)
 
     @functools.cache
@@ -105,13 +65,6 @@ class WaterfallModel:
         (S, 2, n) native planes -> ((S, windows) int32 fftshifted peak
         bins, (S, windows) f32 magnitudes)."""
         def run(r):
-            if self._use_pallas():
-                from quadrs_tpu.ops.waterfall_pallas import fused_waterfall_search
-
-                spec, n_windows, stride, interpret = self._fused_args(r.shape[-1])
-                return fused_waterfall_search(
-                    r, spec, n_windows, stride=stride, interpret=interpret
-                )
             norms = self.step(r)
             return jnp.argmax(norms, axis=-1), jnp.max(norms, axis=-1)
 
@@ -122,18 +75,9 @@ class WaterfallModel:
         """Jitted band-survey step, symmetric with :meth:`jit_search`:
         ``(raw, threshold)`` -> per (stream, fftshifted bin) the
         ``(sum, max, count > threshold)`` of the window norms, each
-        (S, width) f32.  On the fused path the reduction happens in
-        VMEM and the spectrogram never reaches HBM
-        (:func:`quadrs_tpu.ops.waterfall_pallas.fused_waterfall_scan`)."""
+        (S, width) f32."""
 
         def run(r, thr):
-            if self._use_pallas():
-                from quadrs_tpu.ops.waterfall_pallas import fused_waterfall_scan
-
-                spec, n_windows, stride, interpret = self._fused_args(r.shape[-1])
-                return fused_waterfall_scan(
-                    r, spec, n_windows, thr, stride=stride, interpret=interpret
-                )
             norms = self.step(r)
             return (
                 jnp.sum(norms, axis=1),

@@ -1,6 +1,6 @@
 // Native capture loader: pread + deinterleave + readahead.
 //
-// The TPU-native counterpart of the reference's Rust sample reader
+// The counterpart of the reference's Rust sample reader
 // (src/samples.rs:44-94: positional pread + per-sample decode).  Numeric
 // decode stays ON CHIP (quadrs_tpu.formats); this library owns the byte
 // path: positional reads, interleaved->planar conversion (the device

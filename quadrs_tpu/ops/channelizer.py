@@ -2,7 +2,7 @@
 
 No reference counterpart: quadrs extracts ONE channel per run with
 ``shift`` -> ``lowpass`` (README.md:89-95, ``src/shift.rs`` +
-``src/filter.rs``).  This is the TPU-native product for "give me every
+``src/filter.rs``).  This is the product for "give me every
 channel of this band at once" — a critically-sampled polyphase filter
 bank whose channel ``k`` reproduces the reference composition
 
@@ -26,7 +26,7 @@ channel count, so the phase depends only on ``j``.  Splitting
 
 The branch stage is ``U = ceil(N/K)`` fused multiply-adds over a
 ``(B, n, K)`` block (exactly N MACs per input sample, independent of K);
-the DFT rides :func:`~quadrs_tpu.ops.stft.batched_fft` (dense MXU matmul
+the DFT rides :func:`~quadrs_tpu.ops.stft.batched_fft` (dense matmul
 to 256 channels, four-step matmul split beyond).  Channel ``k`` is
 centered at ``+k*sr/K`` (DFT-bin order: ``k >= K/2`` alias to negative
 frequencies, k - K).
@@ -90,7 +90,7 @@ def channelize_block(x: jnp.ndarray, taps: np.ndarray, k: int, n_out: int) -> jn
     for i in range(1, u):
         acc = acc + rows[:, i : i + n_out, :] * hm[i]
 
-    # cross-branch DFT (auto: dense MXU matmul or four-step split), then
+    # cross-branch DFT (auto: dense matmul or four-step split), then
     # the per-channel group-delay phase — constants stay in f32 planes
     y = batched_fft(acc)
     pr, pi = _center_phase(size, k)

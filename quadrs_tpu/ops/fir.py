@@ -16,9 +16,9 @@ Two device implementations:
 * ``direct`` — gather overlapping frames, one ``(B*n_out, N) @ (N,)``
   dot.  Correct for any size; memory grows with ``N/D`` overlap.
 * ``polyphase`` — decompose ``h`` into ``M = ceil(N/D)`` phase
-  subfilters; one ``(…, D) @ (D, M)`` MXU matmul computes every phase
+  subfilters; one ``(…, D) @ (D, M)`` matmul computes every phase
   product, then ``M`` shifted adds assemble outputs.  Work is exactly
-  ``N/D`` MACs per input sample with no frame blowup: the TPU-shaped
+  ``N/D`` MACs per input sample with no frame blowup: the matmul-shaped
   layout for heavy decimation.
 
 * ``overlap_save`` — blockwise FFT convolution for long filters
@@ -27,8 +27,9 @@ Two device implementations:
   linear-valid region, decimate.  O(log M) work per input sample
   instead of O(N/D).
 
-Both run in f32 with ``Precision.HIGHEST`` so MXU passes don't drop to
-bf16 on the conformance path.
+All run in f32 with ``Precision.HIGHEST``: at the default precision an
+f32 matmul may run in a reduced format (TF32 on a GPU), which the
+conformance path cannot afford.
 """
 
 from __future__ import annotations
@@ -115,19 +116,14 @@ def fir_decimate(
     if impl == "auto":
         if is_spectral(size, d):
             # polyphase overlap-save: decimated-rate FFTs via the
-            # four-step matmul split (1830 -> 2266 Msps on the v5e
-            # power=2000 chain vs plain overlap_save, before premixing)
+            # four-step matmul split
             impl = "os_poly"
         elif d >= 4:
-            # measured on v5e: the polyphase's m shifted adds scale worse
-            # than the banded matmul's FLOP overhead once the dispatch is
-            # fat enough to fill the MXU — and "fat" is the TOTAL output
-            # count B*n_out, not the per-row length (round-5 sweep,
-            # taps=400: banded 1.6-1.7x at 128-256k totals for d=10,
-            # 3-14x at >=512k for d in 4..32; polyphase ahead only at
-            # <=64k totals, e.g. 8192x8: 469 vs 337 Msps).  The old
-            # per-row rule (n_out >= 2^18 and d >= 8) left 4.1x on the
-            # FM product shape (65537x8: 2770 -> 11443 Msps).
+            # the polyphase's m shifted adds scale worse than the banded
+            # matmul's FLOP overhead once the dispatch is fat enough to
+            # fill the matmul units — and "fat" is the TOTAL output
+            # count B*n_out, not the per-row length.  The 2^17 crossover
+            # is not yet re-measured on a GPU.
             total_out = int(x.shape[0]) * n_out
             impl = "banded" if total_out >= (1 << 17) else "polyphase"
         else:
@@ -157,7 +153,6 @@ def fir_decimate(
 
     if impl == "direct":
         # frames via row slices + concat, never an overlapping gather
-        # (~80x slower on TPU HBM)
         frames = _overlapped_frames(x, d, size, n_out)  # (B, n_out, size)
         h = jnp.asarray(taps)
         return (
@@ -197,7 +192,7 @@ def fir_decimate(
 @functools.lru_cache(maxsize=16)
 def _banded_weights(taps_key, d: int) -> np.ndarray:
     """(span_p, 128) banded matrix W[p, l] = h[p - l*d]: 128 decimated
-    outputs per matmul column block, MXU-shaped."""
+    outputs per matmul column block."""
     taps = np.frombuffer(taps_key, dtype=np.float32)
     size = len(taps)
     span = 127 * d + size
@@ -210,8 +205,8 @@ def _banded_weights(taps_key, d: int) -> np.ndarray:
 
 def _overlapped_frames(x: jnp.ndarray, hop: int, m: int, n_frames: int) -> jnp.ndarray:
     """(B, L) -> (B, n_frames, m) frames at stride ``hop`` without a
-    gather: TPU HBM gathers of overlapping windows are ~80x slower than
-    this reshape + k consecutive row-slices + concat (k = ceil(m/hop))."""
+    gather: a reshape + k consecutive row-slices + concat
+    (k = ceil(m/hop)), all contiguous copies."""
     k = -(-m // hop)
     rows_needed = n_frames + k - 1
     need = rows_needed * hop
@@ -227,9 +222,8 @@ def _banded(x: jnp.ndarray, taps: np.ndarray, d: int, n_out: int) -> jnp.ndarray
 
     Groups of 128 outputs share one input span; lhs gathers the spans
     (~size/(128*d) read overlap) and a single ``(B*G, span) @ (span,
-    128)`` f32 matmul on the MXU produces every output.  Zeros in the
-    band waste FLOPs but the MXU has them to spare; HBM traffic is what
-    matters.
+    128)`` f32 matmul produces every output.  Zeros in the band waste
+    FLOPs; the layout trades them for contiguous memory traffic.
     """
     size = len(taps)
     w = _banded_weights(taps.astype(np.float32).tobytes(), d)
@@ -269,12 +263,9 @@ def _overlap_save_poly(
 
     size = len(taps)
     md = -(-size // d)  # decimated-domain subfilter length
-    # decimated-rate frame: measured on the v5e power=2000 chain the
-    # optimum is much larger than the classic ~4x-filter rule — the
-    # overlap fraction and the per-frame phase-spectra reduction both
-    # shrink with m2 until the raw frame (m2*d samples) hits VMEM
-    # pressure around 256K.  Sweep at md=125/d=32: m2 512/1024/2048/4096
-    # -> 2656/2742/3326/3868 Msps, 8192 craters to 2351.  Target a 128K-
+    # decimated-rate frame, much larger than the classic ~4x-filter
+    # rule: the overlap fraction and the per-frame phase-spectra
+    # reduction both shrink with m2.  Target a 128K-
     # sample raw frame, capped at 4096 bins, floored by 2x the subfilter
     # — but never larger than one frame covering every requested output
     # (small per-read conformance pulls would otherwise pay for a
@@ -285,8 +276,7 @@ def _overlap_save_poly(
     n_frames = -(-n_out // hop2)
 
     # correlation spectrum sum_j h[j] e^{+2pi i jk/N} = conj(FFT(conj(h)))
-    # of each zero-padded subfilter, f64 on host -> f32 planes (complex
-    # host->device transfers are unimplemented on some runtimes); the
+    # of each zero-padded subfilter, f64 on host -> f32 planes; the
     # inner conj is a no-op for real taps and makes complex (premixed
     # band-pass) taps come out right
     hp = np.zeros((md * d,), dtype=np.complex128)
@@ -307,8 +297,8 @@ def _overlap_save_poly(
         acci = jnp.sum(sr * hi + si * hr, axis=2)
         yr, yi = mxu_fft_planes(accr, acci, inverse=True)
     else:
-        # enormous subfilters (m2 > 1024^2) have no MXU split with
-        # every matmul <= 1024 wide; fall back to XLA's butterfly FFT
+        # enormous subfilters (m2 > 1024^2) have no matmul split with
+        # every matmul <= 1024 wide; fall back to XLA's FFT
         spec = jnp.fft.fft(jax.lax.complex(ph.real, ph.imag))
         acc = jnp.sum(spec * jax.lax.complex(hr, hi), axis=2)
         inv = jnp.fft.ifft(acc)
@@ -324,10 +314,8 @@ def _overlap_save(x: jnp.ndarray, taps: np.ndarray, d: int, n_out: int) -> jnp.n
     computes ``y[i] = sum_j x[i*d + j] h[j]`` like the time-domain paths.
     """
     size = len(taps)
-    # frame size: power of two, ~4x the filter — measured on v5e
-    # (4000-tap chain): 973 / 1826 / 1799 / 1855 Msps at 2/4/8/16x,
-    # i.e. the overlap fraction dominates until ~4x and VMEM pressure
-    # flattens it beyond
+    # frame size: power of two, ~4x the filter — the overlap fraction
+    # dominates the cost below that
     m = 1 << max(size * 4 - 1, 4096).bit_length()
     hop = ((m - size + 1) // d) * d
     if hop <= 0:
@@ -336,8 +324,6 @@ def _overlap_save(x: jnp.ndarray, taps: np.ndarray, d: int, n_out: int) -> jnp.n
 
     # correlation spectrum conj(FFT(conj(h))) — see _overlap_save_poly
     h_f64 = np.conj(np.fft.fft(np.conj(taps.astype(np.complex128)), m))
-    # stage as planes: complex host->device transfers are unimplemented
-    # on some TPU runtimes
     h_f = jax.lax.complex(
         jnp.asarray(h_f64.real.astype(np.float32)),
         jnp.asarray(h_f64.imag.astype(np.float32)),

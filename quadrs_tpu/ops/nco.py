@@ -5,7 +5,7 @@ the host with integer arithmetic — ``((m mod P)·(f mod sr)) mod sr``
 with ``P = sr/gcd(|f|, sr)`` — so one f32 ``cos``/``sin`` per sample on
 device stays accurate (~1 ulp) at any stream offset.  This invariant is
 conformance-critical (CLAUDE.md); every NCO user (stream.Shift,
-sources.ToneGen, models.receiver, ops.frontend_pallas) plans through
+sources.ToneGen, models.receiver) plans through
 this class.
 """
 
@@ -54,7 +54,6 @@ class ExactNCO:
         transcendentals run in f64 on the exact angles, so each entry is
         the correctly-rounded rotation factor.  Consumers rotate these by
         a traced base angle with the addition formulas instead of taking
-        per-sample device trig (see models.receiver._mix_stream and the
-        Pallas frontend's v2.3 tables)."""
+        per-sample device trig (see models.receiver._mix_stream)."""
         t = self.angles(idx, dtype=np.float64)
         return np.cos(t).astype(np.float32), np.sin(t).astype(np.float32)

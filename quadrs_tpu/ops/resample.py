@@ -1,6 +1,6 @@
 """Rational resampler tables and kernel: sample-rate conversion by L/M.
 
-TPU-native addition (no reference counterpart — quadrs only has integer
+Addition (no reference counterpart — quadrs only has integer
 decimation, ``src/filter.rs``).  Semantics follow the house FIR
 convention (:mod:`quadrs_tpu.ops.fir`): with the zero-stuffed upsample
 ``u[n] = x[n/L] if L|n else 0`` and Blackman-sinc taps ``h`` of length
@@ -21,7 +21,7 @@ sum collapses to ``y[i] = sum_q h[phi + q*L] x[beta + q]`` where
 phase pattern repeats when i advances by L), every block reads one
 input frame at stride M, and the whole block is ONE small matmul:
 
-    y[block j] = frames[j] @ W[w]          (m x L, MXU-shaped)
+    y[block j] = frames[j] @ W[w]          (m x L, matmul-shaped)
 
 where ``w = off mod L`` selects among L precomputed weight matrices
 (the phase pattern of a window depends only on its start offset mod L).

@@ -5,13 +5,12 @@ DFT, negative exponent) per strided window (``src/fft.rs:25-32``,
 ``src/ffts.rs:25``) and displays fftshifted magnitudes
 (``src/fft.rs:48-52``).
 
-On TPU, FFTs over large batches route by measured v5e crossovers
-(:func:`_auto_impl`): widths to 256 run as one dense DFT matmul on the
-MXU (``(B, W) @ (W, W)``); from 512 up a four-step two-factor split
-(:func:`four_step_fft_planes` — two skinny matmuls + a twiddle, ``a+b``
-MACs per sample instead of ``W``) beats both the dense matmul and XLA's
-butterfly FFT through at least 4096; unfactorable (prime-ish) widths
-fall back to XLA's native FFT.
+FFTs over large batches route by width (:func:`_auto_impl`): widths to
+256 run as one dense DFT matmul (``(B, W) @ (W, W)``); from 512 up a
+four-step two-factor split (:func:`four_step_fft_planes` — two skinny
+matmuls + a twiddle, ``a+b`` MACs per sample instead of ``W``);
+unfactorable (prime-ish) widths fall back to XLA's native FFT.  The
+crossovers are not yet re-measured against cuFFT on a GPU.
 """
 
 from __future__ import annotations
@@ -25,8 +24,8 @@ import numpy as np
 
 TAU = 2.0 * math.pi
 
-# Widths up to this run as a dense MXU matmul (measured on v5e: the
-# dense DFT wins to 256, the four-step split from 512 up).
+# Widths up to this run as a dense DFT matmul; the four-step split
+# takes over from 512.
 _DFT_MATMUL_MAX_WIDTH = 256
 # Largest single matmul factor inside a four-step split.
 _FOUR_STEP_MAX_FACTOR = 1024
@@ -45,12 +44,10 @@ def dft_matrix(width: int) -> np.ndarray:
 
 
 def _auto_impl(width: int) -> str:
-    """Measured v5e crossovers: dense DFT matmul to 256; from 512 the
-    cheaper house split by :func:`mxu_fft_choice`'s 128-lane-floor
-    effective cost (four_step 512-8192 — it beats XLA's butterfly FFT
-    at every tested width 512..4096, by 2x at 1024 — three_step from
-    16384, confirmed at 8192/16384/32768/65536); XLA FFT when the
-    width won't split (primes and widths with huge factors)."""
+    """Dense DFT matmul to 256; from 512 the cheaper house split by
+    :func:`mxu_fft_choice`'s 128-lane-floor effective cost (four_step
+    512-8192, three_step from 16384); XLA FFT when the width won't
+    split (primes and widths with huge factors)."""
     if width <= _DFT_MATMUL_MAX_WIDTH:
         return "matmul"
     choice = mxu_fft_choice(width)
@@ -104,10 +101,9 @@ def _four_step_tables(width: int, a: int, inverse: bool):
 
 def _four_step_factor(width: int) -> int | None:
     """Pick ``a`` for a two-factor split ``width = a*b`` (None if no
-    split has both factors in range).  Measured on v5e: a ≈ 16 is the
-    sweet spot through width 2048, a ≈ 32 beyond — small first factors
-    keep the twiddle-stage tiles skinny while the second matmul carries
-    the MXU contraction."""
+    split has both factors in range): a ≈ 16 through width 2048, a ≈ 32
+    beyond — small first factors keep the twiddle-stage tiles skinny
+    while the second matmul carries the contraction."""
     target = 16 if width <= 2048 else 32
     best = None
     for a in range(4, min(width, _FOUR_STEP_MAX_FACTOR) + 1):
@@ -128,7 +124,7 @@ def _require_four_step(width: int) -> int:
 def four_step_fft_planes(
     xr: jnp.ndarray, xi: jnp.ndarray, a: int, *, inverse: bool = False
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Cooley-Tukey two-factor DFT as MXU matmuls, on f32 planes.
+    """Cooley-Tukey two-factor DFT as matmuls, on f32 planes.
 
     For ``N = a*b``, splitting input index ``n = b*p + q`` and output
     index ``k = r + a*s`` gives
@@ -137,12 +133,10 @@ def four_step_fft_planes(
 
     i.e. a width-``a`` DFT, an elementwise twiddle, and a width-``b``
     DFT: ``a + b`` MACs per sample instead of the dense matrix's ``N``
-    (~10x less MXU work at N=1024), while staying entirely on matmuls —
-    on TPU this beats both the dense DFT matmul and XLA's butterfly FFT
-    for the 128..4096 widths the waterfall/GUI paths use.  Operates on
-    real/imag planes (no complex constants cross the host boundary) and
-    returns planes.  The einsum forms put the output indices in an order
-    that makes the final reshape free.
+    (~10x less work at N=1024), while staying entirely on matmuls.
+    Operates on real/imag planes and returns planes.  The einsum forms
+    put the output indices in an order that makes the final reshape
+    free.
     """
     width = xr.shape[-1]
     b = width // a
@@ -190,7 +184,7 @@ def _three_step_tables(width: int, a: int, b1: int, inverse: bool):
 
 def _three_step_factors(width: int) -> tuple[int, int] | None:
     """Pick ``(a, b1)`` for a three-factor split ``width = a*b1*b2``
-    minimizing total MXU work (``a + b1 + b2`` MACs per sample);
+    minimizing total matmul work (``a + b1 + b2`` MACs per sample);
     tie-break toward a larger ``a`` (the output lane axis).  None when
     no split has all three factors in [4, 1024]."""
     best = None
@@ -225,7 +219,7 @@ def three_step_fft_planes(
     *,
     inverse: bool = False,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Cooley-Tukey three-factor DFT as MXU matmuls, on f32 planes.
+    """Cooley-Tukey three-factor DFT as matmuls, on f32 planes.
 
     Splitting ``N = a*b1*b2`` twice — ``n = b*p + b2*q1 + q2`` (so the
     input reshape to ``(a, b1, b2)`` is free) and ``k = r + a*s1 +
@@ -237,7 +231,7 @@ def three_step_fft_planes(
 
     i.e. ``a + b1 + b2`` MACs per sample instead of the two-factor
     split's ``a + b``: at N=65536 that is 128 vs 1088, at 4096 it is
-    48 vs 160 — butterfly-class arithmetic at MXU throughput.  The
+    48 vs 160 — butterfly-class arithmetic at matmul throughput.  The
     einsum forms keep the output index axes ordered ``[s2, s1, r]`` so
     the final flatten (``k = (s2*b1 + s1)*a + r``) is free, exactly
     like :func:`four_step_fft_planes`."""
@@ -278,24 +272,21 @@ def three_step_fft_planes(
 
 
 def _eff_macs(*factors: int) -> int:
-    """Effective MACs/sample of a factored DFT on the MXU: each stage's
-    ``(..., f) @ (f, f)`` matmul pays for at least 128 output lanes, so
-    a factor below 128 costs as much as 128.  The floor is what the
-    raw MAC count misses — measured v5e: at width 4096 the three-factor
-    split (16*16*16, 48 raw MACs) LOSES 1.8x to the two-factor
-    (32*128, 160 raw) on the os_poly FIR chain (90 vs 163 Msps
-    same-session), while at 65536 the three-factor (64*32*32) wins
-    798 vs 667 on the pattern search — exactly the eff-cost ordering
-    (384 vs 256 at 4096; 384 vs 1152 at 65536)."""
+    """Effective MACs/sample of a factored DFT: each stage's
+    ``(..., f) @ (f, f)`` matmul is costed as if it had at least 128
+    output lanes, so a factor below 128 costs as much as 128 (384 vs 256
+    at 4096 favours the two-factor split; 384 vs 1152 at 65536 the
+    three-factor one).  The floor models a 128-wide matrix unit and is
+    not yet re-derived for a GPU."""
     return sum(max(f, 128) for f in factors)
 
 
 def mxu_fft_choice(width: int) -> tuple[str, object] | None:
-    """The cheaper house MXU DFT split for this width by effective
+    """The cheaper house matmul DFT split for this width by effective
     MACs/sample (:func:`_eff_macs`): ``("four_step", a)`` or
     ``("three_step", (a, b1))``; None when the width won't factor (the
-    caller falls back to XLA's butterfly FFT).  Ties prefer the
-    two-factor split (fewer stages; the measured winner at 4096)."""
+    caller falls back to XLA's FFT).  Ties prefer the two-factor split
+    (fewer stages)."""
     fac3 = _three_step_factors(width)
     a4 = _four_step_factor(width)
     c3 = None if fac3 is None else _eff_macs(*fac3, width // (fac3[0] * fac3[1]))
@@ -312,10 +303,7 @@ def mxu_fft_planes(
 ) -> tuple[jnp.ndarray, jnp.ndarray] | None:
     """Route f32 planes through :func:`mxu_fft_choice`'s split for this
     width, or None when it has none (the caller falls back to XLA's
-    FFT).  Measured v5e: pattern search c=65536 798 (three) / 667
-    (four) / 526 (xla) Msps; os_poly FIR m2=4096 163 (four) / 90
-    (three) same-session — the 128-lane floor picks the winner both
-    times."""
+    FFT)."""
     width = xr.shape[-1]
     choice = mxu_fft_choice(width)
     if choice is None:
@@ -344,10 +332,9 @@ def stft_norms(
     ``x``: (B, W) complex64 windows.  Returns (B, W) f32 norms,
     fftshifted unless ``shift=False``.
 
-    The magnitude is ``sqrt(re² + im²)`` computed on real planes — on
-    v5e this is ~1.6x the whole non-decimating chain vs ``jnp.abs`` of
-    a materialized complex spectrum (XLA's complex abs lowers to the
-    overflow-safe hypot).  The plain form matches hypot to 1 ulp for
+    The magnitude is ``sqrt(re² + im²)`` computed on real planes rather
+    than ``jnp.abs`` of a materialized complex spectrum (XLA's complex
+    abs lowers to the overflow-safe hypot).  The plain form matches hypot to 1 ulp for
     spectra below ~1e18, far above any real capture; the reference's
     ``Complex::norm`` is hypot, and the glyph-exactness suites pass
     either way.

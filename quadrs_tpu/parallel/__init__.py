@@ -1,9 +1,9 @@
 """Multi-chip and multi-host execution.
 
-:mod:`quadrs_tpu.parallel.sharding` — single-process meshes (ICI):
+:mod:`quadrs_tpu.parallel.sharding` — single-process meshes:
 time-sharded streaming with halo exchange, stream banks.
 :mod:`quadrs_tpu.parallel.distributed` — multi-process bring-up
-(``jax.distributed``) and global-mesh array assembly (DCN).
+(``jax.distributed``) and global-mesh array assembly.
 """
 
 from quadrs_tpu.parallel.sharding import (  # noqa: F401

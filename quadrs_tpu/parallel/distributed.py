@@ -1,15 +1,15 @@
 """Multi-host execution: the same sharded streaming step across
 processes (SURVEY §5 "Distributed communication backend").
 
-The reference has no networking at all; the TPU-native counterpart runs
-one JAX process per host, joined through ``jax.distributed`` — ICI
-collectives inside a host, DCN between hosts, both behind the same
+The reference has no networking at all; this counterpart runs one JAX
+process per host, joined through ``jax.distributed`` — the device
+interconnect inside a host, the network between hosts, both behind the same
 ``shard_map``.  Nothing in :mod:`quadrs_tpu.parallel.sharding` changes:
 :func:`~quadrs_tpu.parallel.sharding.make_mesh` already builds from
 ``jax.devices()``, which is the *global* device list once
 :func:`init_distributed` has run, and the halo ``ppermute`` in
 ``make_sharded_stream_step`` crosses process boundaries transparently
-(Gloo on CPU rigs, ICI/DCN on TPU pods).
+(Gloo on CPU, NCCL on GPUs).
 
 What this module adds is the host-side plumbing that is different under
 multi-process:
@@ -44,10 +44,9 @@ def init_distributed(
 ) -> None:
     """Join this process to the global JAX runtime.
 
-    Call before any other jax use.  On TPU pods the three arguments are
-    normally auto-detected and plain ``jax.distributed.initialize()``
-    suffices; passing them explicitly supports CPU rigs and manual
-    bring-up.  After this, ``jax.devices()`` lists every chip in the
+    Call before any other jax use.  The three arguments are explicit
+    because nothing detects a cluster on its own here: the coordinator
+    is ``host:port`` of process 0.  After this, ``jax.devices()`` lists every chip in the
     job and meshes from :func:`quadrs_tpu.parallel.sharding.make_mesh`
     span processes.
     """

@@ -41,7 +41,7 @@ class LowPassOp(Operation):
 
 @dataclass
 class ResampleOp(Operation):
-    """Rational rate conversion by ``up/down`` (TPU-native addition;
+    """Rational rate conversion by ``up/down`` (an addition;
     the reference only decimates)."""
 
     up: int
@@ -52,7 +52,7 @@ class ResampleOp(Operation):
 
 @dataclass
 class DcBlockOp(Operation):
-    """Trailing-mean DC-offset removal (TPU-native addition; see
+    """Trailing-mean DC-offset removal (an addition; see
     :class:`quadrs_tpu.stream.DcBlock`)."""
 
     window: int = 32_000  # the CLI default "32k" (decimal SI)
@@ -60,7 +60,7 @@ class DcBlockOp(Operation):
 
 @dataclass
 class AgcOp(Operation):
-    """Trailing-RMS automatic gain control (TPU-native addition; see
+    """Trailing-RMS automatic gain control (an addition; see
     :class:`quadrs_tpu.stream.Agc`)."""
 
     target: float = 1.0
@@ -70,7 +70,7 @@ class AgcOp(Operation):
 
 @dataclass
 class IqbalOp(Operation):
-    """IQ-imbalance correction (TPU-native addition; see
+    """IQ-imbalance correction (an addition; see
     :class:`quadrs_tpu.stream.IqCorrect`).  ``c`` is the explicit
     correction coefficient; None blind-estimates it from the first
     ``est`` samples."""
@@ -98,14 +98,14 @@ class BucketOp(Operation):
 class WriteOp(Operation):
     overwrite: bool
     prefix: str
-    # TPU-native addition: quantize to an integer wire format (the
+    # Addition: quantize to an integer wire format (the
     # reference writes cf32 only); None keeps the reference behavior
     format: str | None = None
 
 
 @dataclass
 class FindOp(Operation):
-    """Matched-filter pattern search (TPU-native addition; see
+    """Matched-filter pattern search (an addition; see
     :func:`quadrs_tpu.sinks.find_pattern`): locate every occurrence of
     the pattern capture(s) in the accumulated stream by gain/phase-
     invariant normalized cross-correlation, emitting one
@@ -142,7 +142,7 @@ class GenOp(Operation):
     seconds: float
     sample_rate: int
     cos: Sequence[int] = field(default_factory=list)
-    # TPU-native addition: seeded complex Gaussian noise (per-component
+    # Addition: seeded complex Gaussian noise (per-component
     # sigma); the reference generator is noiseless
     noise: float = 0.0
     seed: int = 0

@@ -1,8 +1,8 @@
-"""CLI drivers for the TPU-native serving products.
+"""CLI drivers for the serving products.
 
 The reference is a CLI tool first (``src/bin/quadrs.rs:9-28`` — its
 usage text is its product surface).  This module gives the rebuild's
-flagship TPU-native capabilities the same shell surface: sustained
+flagship capabilities the same shell surface: sustained
 :class:`~quadrs_tpu.stream_runner.StreamRunner` streaming (``stream``),
 the fused waterfall bank with in-kernel peak search (``waterfall``), and
 the composed demodulator models (``ook``/``fsk``) — none of which exist
@@ -1140,7 +1140,7 @@ def _find_connection(
 
     With ``-mesh Tx1`` the burst is buffered whole instead (the demod
     modes' 1 GiB cap) and the correlation time-shards across the device
-    mesh with the ``l-1`` halo over ICI (``find_pattern(mesh=...)``)."""
+    mesh with the ``l-1`` halo over the interconnect (``find_pattern(mesh=...)``)."""
     import time
 
     from quadrs_tpu import sinks

@@ -78,9 +78,9 @@ class SampleSource(Stream):
     def stage(self, lo: int, hi: int) -> np.ndarray:
         """Materialize samples [lo, hi) as (2, hi-lo) native-dtype planes.
 
-        Deinterleaving happens here, on the host, in one pass: TPU HBM
-        is ~30x slower at stride-2 access than contiguous, so the device
-        only ever sees contiguous per-component planes.
+        Deinterleaving happens here, on the host, in one pass, so the
+        device only ever reads contiguous per-component planes instead
+        of stride-2 pairs.
         """
         from quadrs_tpu.formats import planes_from_bytes
 
@@ -327,7 +327,7 @@ def _splitmix64(x: np.ndarray) -> np.ndarray:
 
 class ToneGen(Stream):
     """Multi-tone complex exponential generator (``src/gen.rs``), plus a
-    TPU-native addition the reference lacks: seeded complex Gaussian
+    An addition the reference lacks: seeded complex Gaussian
     noise (``noise`` = per-component standard deviation) for realistic
     test captures.  The noise is COUNTER-BASED (a splitmix64 hash of
     the absolute sample index through an exact two-uniform Box-Muller),

@@ -1,4 +1,4 @@
-"""The lazy stream graph — TPU-native counterpart of the reference's
+"""The lazy stream graph — the counterpart of the reference's
 ``Samples`` trait (``src/samples.rs:11-28``).
 
 The reference models DSP as pull-based random access: every stage
@@ -17,7 +17,7 @@ same *semantics* are split across two phases:
 * **read_batch (device)** — a pure traced function computing a whole
   ``(B, n)`` batch of windows in one XLA program.  Stages compose by
   ordinary function calls, so XLA fuses decode + mix + FIR + FFT into a
-  single program with the matmuls/convolutions on the MXU.
+  single program.
 
 Valid-count invariant: every node's output beyond its *source-derived*
 valid count is exactly zero (sources mask), while transform stages that
@@ -106,7 +106,7 @@ class Shift(Stream):
     The angle is reduced exactly on the host: ``(f·m) mod sr`` in integer
     arithmetic, then one f32 ``cos``/``sin`` on device — phase-coherent
     random access at any offset, like the reference's absolute-index f64
-    phase (``src/shift.rs:46-53``) but without 64-bit floats on the TPU.
+    phase (``src/shift.rs:46-53``) but without 64-bit floats on the device.
     """
 
     def __init__(self, inner: Stream, frequency: int, sample_rate: int | None = None):
@@ -246,7 +246,7 @@ class _Trailing(Stream):
     the last ``W`` input samples (inclusive of the current one): exact
     random access (the lookback is re-read, clamped at the stream
     start), so outputs are pull-size invariant — unlike LowPass's
-    reference-mandated per-read truncation, these stages are TPU-native
+    reference-mandated per-read truncation, these stages are
     additions and choose exact semantics (the same stance as Resample's
     exact ``length``)."""
 
@@ -294,7 +294,7 @@ class _Trailing(Stream):
 
 
 class DcBlock(_Trailing):
-    """DC-offset remover (TPU-native addition; no reference
+    """DC-offset remover (an addition; no reference
     counterpart).  Subtracts from each sample the mean of the trailing
     ``window`` input samples (inclusive):
 
@@ -325,7 +325,7 @@ class DcBlock(_Trailing):
 
 
 class Agc(_Trailing):
-    """Automatic gain control (TPU-native addition).  Normalizes the
+    """Automatic gain control (an addition).  Normalizes the
     trailing-window RMS to ``target``:
 
         rms[m] = sqrt(mean(|x[k]|^2, k in (m-W, m]))
@@ -377,7 +377,7 @@ class Agc(_Trailing):
 
 
 class IqCorrect(Stream):
-    """IQ-imbalance corrector (TPU-native addition).  Applies the
+    """IQ-imbalance corrector (an addition).  Applies the
     standard widely-linear correction
 
         y[m] = x[m] - c * conj(x[m])
@@ -452,7 +452,7 @@ class IqCorrect(Stream):
 
 
 class Resample(Stream):
-    """Rational sample-rate converter (TPU-native addition; the
+    """Rational sample-rate converter (an addition; the
     reference only decimates, ``src/filter.rs``).
 
     Converts by ``up/down`` (reduced internally): zero-stuff by L,

@@ -1,10 +1,10 @@
 """Determinism auditing.
 
 The reference's only concurrency-safety surface is Rust's type system
-(SURVEY §5); the TPU-native equivalents are (a) re-execution equality
+(SURVEY §5); the equivalents here are (a) re-execution equality
 checks — jit programs are pure, so any nondeterminism indicates an
 unsafe donation/aliasing or a hardware fault — and (b) cross-backend
-comparison (CPU vs TPU) within float tolerance.
+comparison (CPU vs accelerator) within float tolerance.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def compare_backends(fn: Callable, *args, rtol: float = 1e-5, atol: float = 1e-5
     """Run ``fn`` on the default device and on an independent execution
     path; assert closeness.
 
-    On an accelerator the second path is the CPU backend — the TPU-world
+    On an accelerator the second path is the CPU backend — the
     stand-in for the reference's missing multi-backend tests (SURVEY §4).
     When the default device already *is* the CPU (the test rig), the
     second path is op-by-op eager execution (``jax.disable_jit``), which

@@ -3,7 +3,7 @@
 The reference ships its interactivity as desktop GUI loops: the legacy
 conrod window re-renders on every button press (``src/ui/mod.rs:87-258``,
 fft+ doubles the width, ``:140-160``) and the egui window re-renders as
-the sliders move (``src/eui/mod.rs:118-161``).  A TPU host has no
+the sliders move (``src/eui/mod.rs:118-161``).  An accelerator host has no
 display, so this module re-homes that loop to the terminal: spectrogram
 rows stream as ANSI-truecolor cells while keystrokes retune the STFT
 mid-stream —

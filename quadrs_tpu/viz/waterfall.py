@@ -1,6 +1,6 @@
 """Waterfall renderers — file-writing parity for the reference GUIs.
 
-The reference ships two OpenGL desktop waterfalls; a TPU host has no
+The reference ships two OpenGL desktop waterfalls; an accelerator host has no
 display, so the same render engines write PNGs instead:
 
 * :func:`ui_render` mirrors the legacy conrod GUI's ``render``

@@ -1,25 +1,33 @@
 """Test harness configuration.
 
-Tests run on the CPU backend with 8 virtual devices so multi-chip
-sharding is exercised without TPU hardware (the ``shard_map`` programs
-compile identically).  Set ``QUADRS_TEST_TPU=1`` to run the suite
-against the real attached accelerator instead.
+The platform is JAX's own choice: ``JAX_PLATFORMS=cpu`` runs the suite
+on the CPU backend, where 8 virtual devices exercise the multi-device
+sharding (the ``shard_map`` programs compile the same way).  Tests
+marked ``gpu`` need an NVIDIA card and skip elsewhere; run them on the
+card with ``python -m pytest -m gpu tests/``.
 """
 
 import os
 
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 
-import jax  # noqa: E402
-
-if not os.environ.get("QUADRS_TEST_TPU"):
-    jax.config.update("jax_platforms", "cpu")
-
 import pathlib  # noqa: E402
 
 import pytest  # noqa: E402
 
 REFERENCE_EXAMPLES = pathlib.Path("/root/reference/examples")
+
+
+@pytest.fixture(autouse=True)
+def _gpu_marker(request):
+    """Skip ``gpu``-marked tests unless JAX's default device is a GPU
+    (decided when the test runs, never at import or collection)."""
+    if request.node.get_closest_marker("gpu") is None:
+        return
+    import jax
+
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs an NVIDIA GPU: python -m pytest -m gpu tests/ on the card")
 
 
 @pytest.fixture

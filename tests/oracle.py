@@ -5,7 +5,7 @@ against this independent implementation: a direct sample-by-sample
 transcription of the reference's math (decode formulas, f64 NCO phase,
 f32 taps, truncated per-read convolution, glyph quantization), executed
 window-by-window exactly as the reference sinks pull.  Tests then assert
-the batched TPU-path output matches this oracle.
+the batched device-path output matches this oracle.
 
 Accumulations (convolution dots, FFT) run in f64 here and cast to f32,
 i.e. the oracle is the correctly-rounded target the f32 device path must

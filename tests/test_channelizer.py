@@ -262,7 +262,7 @@ def _mesh_or_skip(n: int):
 
 def test_sharded_channelize_matches_single_device():
     """run_channelize(mesh=4x1) time-shards the capture with a
-    ``size``-sample ICI halo; with shards pulling the same ``chunk`` as
+    ``size``-sample halo; with shards pulling the same ``chunk`` as
     the single-device run the output is BIT-equal (the per-shard slice
     is the "read" for the per-read truncation semantics), including the
     unaligned capture tail that runs single-device."""

@@ -1,4 +1,4 @@
-"""End-to-end CLI tests for the TPU-native serving commands
+"""End-to-end CLI tests for the serving commands
 (``stream``/``waterfall``/``ook``/``fsk``): the runner products driven
 from the shell, compared against direct library runs."""
 
@@ -114,7 +114,6 @@ def test_cli_waterfall_bank(capture, tmp_path, capsys):
     model = WaterfallModel(
         WaterfallConfig(
             n_streams=2, fft_width=256, stride=128, fmt=src.format,
-            frontend="xla",
         )
     )
     import jax.numpy as jnp
@@ -141,8 +140,7 @@ def test_cli_waterfall_search(capture, tmp_path, capsys):
 
     src = open_capture(str(capture))
     model = WaterfallModel(
-        WaterfallConfig(n_streams=1, fft_width=256, stride=256, fmt=src.format,
-                        frontend="xla")
+        WaterfallConfig(n_streams=1, fft_width=256, stride=256, fmt=src.format)
     )
     import jax.numpy as jnp
 

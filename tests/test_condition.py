@@ -1,4 +1,4 @@
-"""Frontend-conditioning stages (TPU-native additions; no reference
+"""Frontend-conditioning stages (additions; no reference
 counterpart): DC-offset removal, AGC, and IQ-imbalance correction.
 
 Oracles are sequential f64 transcriptions of the documented formulas

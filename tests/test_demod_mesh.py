@@ -6,7 +6,7 @@ and on the CPU rig even that is bit-identical).
 The sharded builder time-shards the streaming dispatch's WINDOW axis
 (``models.demod._channel_step(mesh=)``): each chip holds a contiguous
 run of windows' raw planes and pulls the window-overlap halo from its
-right neighbor over ICI, exactly the find/channelize pattern
+right neighbor over the interconnect, exactly the find/channelize pattern
 (``parallel/sharding.py``).  Mesh dispatches cover full windows only;
 the EOF tail stitches through the single-device dispatches, so these
 tests size captures to exercise BOTH the sharded prefix and the
@@ -36,8 +36,8 @@ from quadrs_tpu.stream import DcBlock
 
 @pytest.fixture(autouse=True)
 def _needs_mesh_devices():
-    """The module meshes up to 8 ways; on the single attached chip
-    (QUADRS_TEST_TPU=1) every sharding test skips, like test_find's."""
+    """The module meshes up to 8 ways; with fewer devices (one card)
+    every sharding test skips, like test_find's."""
     import jax
 
     if len(jax.devices()) < 8:

@@ -1,5 +1,5 @@
 """Matched-filter pattern search: ``sinks.find_pattern`` + ``quadjax
-find`` (TPU-native addition, no reference counterpart).
+find`` (an addition, no reference counterpart).
 
 Conformance target is the definition itself: the normalized-correlation
 score ``|sum conj(p) x|^2 / (E_p E_x)`` — pinned against a sequential
@@ -251,7 +251,7 @@ def test_device_extract_bank_and_grid(monkeypatch):
 
 
 def test_sharded_find_matches_single_device(monkeypatch):
-    """find_pattern(mesh=4x1) time-shards the capture with an l-1 ICI
+    """find_pattern(mesh=4x1) time-shards the capture with an l-1
     halo; matches equal the single-device run (offsets/which exact,
     scores to f32 accumulation order), including candidates straddling
     shard boundaries and the unaligned capture tail that runs
@@ -892,7 +892,7 @@ class TestCli:
 
 @pytest.mark.parametrize("impl", ["four_step", "three_step"])
 def test_house_fft_impl_matches_xla(impl):
-    """The house MXU DFT engines (fft_impl="four_step"/"three_step") are
+    """The house matmul DFT engines (fft_impl="four_step"/"three_step") are
     drop-ins for XLA's FFT: same offsets, scores to f32 tolerance, on
     both the single-template and the template-bank/grid paths."""
     rng = np.random.default_rng(15)

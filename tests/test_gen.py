@@ -59,7 +59,7 @@ def test_gen_validation():
 
 
 # ---------------------------------------------------------------------------
-# gen -noise (seeded, counter-based; TPU-native addition)
+# gen -noise (seeded, counter-based; an addition)
 
 
 def test_gen_noise_deterministic_and_random_access():

@@ -1,5 +1,5 @@
 """Capture statistics (`quadjax info` / `sinks.capture_info`): the
-soxi of IQ files (TPU-native addition; no reference counterpart)."""
+soxi of IQ files (an addition; no reference counterpart)."""
 
 import numpy as np
 import pytest

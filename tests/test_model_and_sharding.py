@@ -144,162 +144,6 @@ def test_graft_entry():
     # the multi-process variant is covered by tests/test_distributed.py
 
 
-@pytest.mark.parametrize(
-    "fmt", [FileFormat.COMPLEX_INT8, FileFormat.COMPLEX_FLOAT32]
-)
-def test_pallas_stream_step_matches_xla(fmt):
-    cfg = PipelineConfig(
-        sample_rate=CFG.sample_rate,
-        shift_freq=CFG.shift_freq,
-        lp_freq=CFG.lp_freq,
-        decimate=CFG.decimate,
-        taps=CFG.taps,
-        fft_width=CFG.fft_width,
-        fmt=fmt,
-    )
-    model = PipelineModel(cfg)
-    if not model.pallas_supported():
-        pytest.skip("decimation unsupported by the pallas frontend")
-    n_chunk = CFG.decimate * CFG.fft_width * 6 + CFG.taps
-    raw = model.synth_raw(n_chunk, seed=17)
-    import jax as _jax
-
-    want = np.asarray(model.jit_step_stream(raw, np.float32(0.0)))
-    # interpret mode on CPU rigs, compiled on TPU
-    interp = _jax.default_backend() != "tpu"
-    from quadrs_tpu.ops.frontend_pallas import fused_frontend_t  # noqa: F401
-
-    bases = model.stream_bases(0, n_chunk)
-    if interp:
-        from quadrs_tpu.ops.stft import stft_norms
-        from quadrs_tpu.formats import pack_complex
-        from quadrs_tpu.ops.frontend_pallas import fused_frontend_t
-
-        cfgm = model.cfg
-        n_dec = (n_chunk - cfgm.taps) // cfgm.decimate
-        nw = n_dec // cfgm.fft_width
-        y = fused_frontend_t(
-            raw[:, cfgm.taps // 2 :], bases, model.frontend_spec, n_dec, interpret=True
-        )
-        yc = pack_complex(np.asarray(y[0]), np.asarray(y[1]), xp=np)
-        got = np.asarray(
-            stft_norms(
-                np.asarray(yc[: nw * cfgm.fft_width]).reshape(nw, cfgm.fft_width)
-            )
-        )
-    else:
-        got = np.asarray(model.jit_step_stream_pallas(raw, bases))
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4 * want.max())
-
-
-def test_sharded_pallas_frontend_matches_xla_sharded():
-    if len(jax.devices()) < 4:
-        pytest.skip("needs >=4 virtual devices")
-    model = PipelineModel(CFG)
-    if not model.pallas_supported():
-        pytest.skip("decimation unsupported by the pallas frontend")
-    n_time, n_stream = 4, 1
-    n_local = CFG.decimate * CFG.fft_width * 2
-    total = n_time * n_local
-    halo = halo_samples(CFG)
-    raws = np.stack([model.synth_raw(total + halo, seed=s) for s in range(n_stream)])
-    mesh = make_mesh(n_time, n_stream)
-    theta0 = plan_shard_phases(model, n_local, n_time, n_stream)
-    args = (
-        shard_chunk(raws[:, :, :total], mesh),
-        shard_chunk(theta0, mesh),
-        replicate_tail(raws[:, :, total:], mesh),
-    )
-
-    a = np.asarray(make_sharded_stream_step(model, mesh, frontend="xla")(*args))
-    b = np.asarray(make_sharded_stream_step(model, mesh, frontend="pallas")(*args))
-    assert a.shape == b.shape
-    np.testing.assert_allclose(b, a, rtol=3e-4, atol=3e-4 * a.max())
-
-
-def test_pallas_stream_step_odd_taps_matches_xla():
-    """Odd tap counts: the group-delay prefix is ceil(taps/2) everywhere
-    (regression for the floor/ceil mismatch review finding)."""
-    cfg = PipelineConfig(
-        sample_rate=1_000_000,
-        shift_freq=12_500,
-        lp_freq=50_000,
-        decimate=8,
-        taps=65,
-        fft_width=32,
-        fmt=FileFormat.COMPLEX_INT8,
-    )
-    model = PipelineModel(cfg)
-    assert model.pallas_supported()
-    n_chunk = cfg.decimate * cfg.fft_width * 4 + cfg.taps
-    raw = model.synth_raw(n_chunk, seed=19)
-    want = np.asarray(model.jit_step_stream(raw, np.float32(0.0)))
-    got = np.asarray(
-        model.jit_step_stream_pallas(raw, model.stream_bases(0, n_chunk))
-    )
-    np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-4 * want.max())
-
-
-def test_pallas_supported_respects_subfilter_limit():
-    cfg = PipelineConfig(
-        sample_rate=1_000_000,
-        shift_freq=12_500,
-        lp_freq=50_000,
-        decimate=2,
-        taps=400,  # 200 subfilters > 128
-        fft_width=64,
-        fmt=FileFormat.COMPLEX_INT8,
-    )
-    assert not PipelineModel(cfg).pallas_supported()
-
-
-def test_pallas_preferred_routing():
-    """Auto-routing follows the measured v5e crossovers: fused frontend
-    for m_sub<=32 dividing decimates and tiny non-dividing ones; XLA
-    (matmul / spectral os_poly) elsewhere.  Everything preferred must
-    also be supported (capability superset)."""
-
-    def model(d, taps):
-        return PipelineModel(
-            PipelineConfig(
-                sample_rate=21_000_000,
-                shift_freq=280_000,
-                lp_freq=50_000,
-                decimate=d,
-                taps=taps,
-                fft_width=64,
-                fmt=FileFormat.COMPLEX_INT8,
-            )
-        )
-
-    assert model(32, 400).pallas_preferred()  # headline: m_sub=13
-    assert model(3, 40).pallas_preferred()  # XLA craters at d=3 (45 Msps)
-    assert model(6, 100).pallas_preferred()
-    assert not model(12, 200).pallas_preferred()  # XLA measured faster
-    assert not model(8, 400).pallas_preferred()  # m_sub=50 at d=8: XLA faster
-    assert model(16, 640).pallas_preferred()  # m_sub=40 at d=16 cs8: fused wins
-    assert model(32, 1600).pallas_preferred()  # m_sub=50 at d=32: fused 1.85x
-    assert not model(64, 4096).pallas_preferred()  # m_sub=64 at d=64: parity
-    cf32 = PipelineModel(
-        PipelineConfig(
-            sample_rate=21_000_000,
-            shift_freq=280_000,
-            lp_freq=50_000,
-            decimate=16,
-            taps=640,
-            fft_width=64,
-            fmt=FileFormat.COMPLEX_FLOAT32,
-        )
-    )
-    assert not cf32.pallas_preferred()  # cf32 at d=16/m_sub=40: XLA faster
-    assert not model(32, 4000).pallas_preferred()  # os_poly beats direct
-    assert model(32, 4000).pallas_supported()  # …but fused CAN run it
-    assert model(8, 400).pallas_supported()
-    for d, taps in [(32, 400), (3, 40), (8, 400), (32, 4000)]:
-        m = model(d, taps)
-        assert not m.pallas_preferred() or m.pallas_supported()
-
-
 def test_sharded_odd_taps_matches_single_device():
     if len(jax.devices()) < 4:
         pytest.skip("needs >=4 virtual devices")

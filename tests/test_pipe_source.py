@@ -165,7 +165,7 @@ def test_pipe_guards():
 def test_pipe_mesh_stream_matches_file_mesh():
     """A live pipe shards over the 'time' mesh axis: StreamRunner wraps
     it in a LivePipeStream whose forward reads back the sharded staging
-    (ICI halo + true tail), EOF turns the sentinel length real, and the
+    (halo + true tail), EOF turns the sentinel length real, and the
     ragged tail runs as on files — rows identical to the file-mesh run
     and to the single-device run."""
     import jax
@@ -271,7 +271,7 @@ def test_waterfall_pipe_matches_file(width, stride, n_samples):
     fmt = FileFormat.COMPLEX_INT8
     data = _capture_bytes(n_samples, fmt, seed=11)
     cfg = WaterfallConfig(
-        n_streams=1, fft_width=width, stride=stride, fmt=fmt, frontend="xla"
+        n_streams=1, fft_width=width, stride=stride, fmt=fmt
     )
     model = WaterfallModel(cfg)
 
@@ -313,7 +313,7 @@ def test_waterfall_pipe_resume_and_guards():
 
     fmt = FileFormat.COMPLEX_INT8
     data = _capture_bytes(15_000, fmt, seed=12)
-    cfg = WaterfallConfig(n_streams=1, fft_width=128, stride=64, fmt=fmt, frontend="xla")
+    cfg = WaterfallConfig(n_streams=1, fft_width=128, stride=64, fmt=fmt)
     model = WaterfallModel(cfg)
 
     fsrc = SampleSource(np.frombuffer(data, dtype=np.uint8), fmt, 48_000)
@@ -345,7 +345,7 @@ def test_waterfall_pipe_resume_and_guards():
 @pytest.mark.parametrize(
     "width,stride,n_samples",
     [
-        (128, 64, 40_000),   # overlapped: the window halo crosses ICI
+        (128, 64, 40_000),   # overlapped: the window halo crosses the interconnect
         (128, 128, 40_011),  # tiled, ragged EOF
         (128, 300, 60_000),  # skipping: whole stride cells staged
     ],
@@ -367,7 +367,7 @@ def test_waterfall_pipe_mesh_matches_file_mesh(width, stride, n_samples):
     fmt = FileFormat.COMPLEX_INT8
     data = _capture_bytes(n_samples, fmt, seed=31)
     cfg = WaterfallConfig(
-        n_streams=1, fft_width=width, stride=stride, fmt=fmt, frontend="xla"
+        n_streams=1, fft_width=width, stride=stride, fmt=fmt
     )
     model = WaterfallModel(cfg)
     mesh = make_mesh(n_time=4, n_stream=1)

@@ -1,5 +1,5 @@
 """`quadjax replay`: paced raw-byte playback of a capture to stdout —
-the producer side of the live-pipe story (TPU-native addition)."""
+the producer side of the live-pipe story (an addition)."""
 
 import io
 import pathlib
@@ -75,7 +75,7 @@ def test_replay_pipes_into_a_stdin_consumer(tmp_path):
     # the advertised one-liner: a recorded capture stands in for the
     # radio (two real processes, a real pipe); the consumer's decoded
     # bits must match the direct file run
-    env = {"QUADRS_PLATFORM": "cpu", "PATH": "/usr/local/bin:/usr/bin:/bin"}
+    env = {"JAX_PLATFORMS": "cpu", "PATH": "/usr/local/bin:/usr/bin:/bin"}
     direct = subprocess.run(
         [sys.executable, "-m", "quadrs_tpu", "ook", "-bit", "16", str(OOK)],
         capture_output=True, text=True, env=env, timeout=600,

@@ -1,4 +1,4 @@
-"""Rational resampler conformance (TPU-native addition; no reference
+"""Rational resampler conformance (an addition; no reference
 counterpart — quadrs only decimates, ``src/filter.rs``).
 
 The oracle is a sequential f64 transcription of the documented formula
